@@ -1,17 +1,19 @@
-"""gcnbmp_tpu — a TPU-native graph message-passing framework.
+"""gcnbmp_tpu — a JAX graph message-passing framework for drug-drug
+interaction prediction.
 
-A from-scratch JAX/XLA/Pallas framework providing the model families and
+A from-scratch JAX/XLA framework providing the model families and
 pipelines of the GCN-BMP drug-drug-interaction codebase (reference:
-Minys233/GCN-BMP), redesigned TPU-first:
+Minys233/GCN-BMP), redesigned around static shapes and packed batches:
 
 - ``chem``     SMILES -> molecular graph featurization (no RDKit dependency;
                pure-Python reference parser + native C++ fast path).
 - ``data``     pair-CSV parsing, pad/bucket batching, packed supergraph
                layout, dataset splitting tools.
-- ``ops``      Pallas kernels + XLA ops for the hot paths: edge-type
-               message aggregation (SpMM), fused GRU, gated readout,
-               circular correlation, co-attention affinity.
-- ``models``   flax.linen modules: GGNN/RelGCN/GIN/MPNN/NFP encoders,
+- ``ops``      XLA ops for the hot paths: edge-type message aggregation,
+               the on-device COO adjacency build, slot-table gathers,
+               circular correlation.
+- ``nn``       the small flax.linen-style module system the models use.
+- ``models``   modules: GGNN/RelGCN/GIN/MPNN/NFP encoders,
                co-attention family, link-prediction heads, pair predictor.
 - ``train``    typed configs, training loop, metrics, checkpoints, LR
                schedules (exponential-shift + cyclical).

@@ -18,8 +18,7 @@ backend-free ``Mol`` model:
   no extra chemistry here).
 
 Outputs are ragged per-molecule numpy arrays; batching/padding/packing is
-the data layer's job (TPU-first: static shapes are produced there, not
-here).
+the data layer's job (static shapes are produced there, not here).
 """
 
 from __future__ import annotations

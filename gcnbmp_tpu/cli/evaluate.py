@@ -47,7 +47,8 @@ def parse_args(argv=None):
     p.add_argument("--labels-csv", dest="labels_csv", default=None,
                    help="class-list CSV for multi-label runs (same file "
                         "given to train.py; enables ||-label parsing)")
-    p.add_argument("--platform", default=None)
+    p.add_argument("--platform", default=None,
+                   help="jax platform override (e.g. cpu, gpu)")
     return p.parse_args(argv)
 
 
@@ -58,6 +59,9 @@ def main(argv=None):
         import jax
 
         jax.config.update("jax_platforms", args.platform)
+    from gcnbmp_tpu.runtime import enable_compile_cache
+
+    enable_compile_cache()
     logging.basicConfig(level=logging.INFO)
 
     import numpy as np

@@ -26,13 +26,17 @@ def main(argv=None):
     p.add_argument("--batch-size", type=int, default=256)
     p.add_argument("--smiles-cols", default="smiles_1,smiles_2",
                    help="the two SMILES column names (match train.py)")
-    p.add_argument("--platform", default=None)
+    p.add_argument("--platform", default=None,
+                   help="jax platform override (e.g. cpu, gpu)")
     args = p.parse_args(argv)
     if args.platform:
         os.environ["JAX_PLATFORMS"] = args.platform
         import jax
 
         jax.config.update("jax_platforms", args.platform)
+    from gcnbmp_tpu.runtime import enable_compile_cache
+
+    enable_compile_cache()
     logging.basicConfig(level=logging.INFO)
 
     import numpy as np

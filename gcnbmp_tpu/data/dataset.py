@@ -1,8 +1,8 @@
-"""Pair datasets and TPU-friendly batching.
+"""Pair datasets and static-shape batching.
 
 Replaces the reference's NumpyTupleDataset + chainer_chemistry
 ``concat_mols`` pad-to-max converter (reference: parsers.py:28-121,
-train_ddi_modify_eval2.py:556-590).  TPU-first differences:
+train_ddi_modify_eval2.py:556-590).  Differences:
 
 - padding targets come from a fixed bucket ladder, so jit sees a small,
   closed set of shapes instead of one shape per batch;
@@ -201,8 +201,8 @@ def make_batch(
 
     ``fill_batch_to``: pad a short batch up to this many rows with empty
     graphs and label ``-1`` (ignored by the loss and filtered by metric
-    collection) — keeps the jit shape set closed, which matters a lot
-    under slow remote TPU compilation.
+    collection) — keeps the jit shape set closed, so each shape compiles
+    once.
     """
     g1 = [ds.graphs1[i] for i in indices]
     g2 = [ds.graphs2[i] for i in indices]

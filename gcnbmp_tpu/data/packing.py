@@ -1,9 +1,9 @@
-"""Packed supergraph batching — the TPU-first high-throughput layout.
+"""Packed supergraph batching — the high-throughput layout.
 
 Instead of padding every molecule to a common N (the reference's
 concat_mols approach, which wastes (N_pad - n_i) rows per molecule), many
-small molecules are bin-packed into fixed tiles of TILE=128 atoms — the
-MXU's native dimension.  A batch becomes:
+small molecules are bin-packed into fixed tiles of TILE=128 atoms.  A
+batch becomes:
 
     atom_ids  (P, 128)  int32   atoms of all packed molecules
     adj       (P, 4, 128, 128)  block-diagonal edge-type adjacency
@@ -12,8 +12,8 @@ MXU's native dimension.  A batch becomes:
 
 Molecules never split across tiles; mol_id ascends within each tile
 (padding slots carry num_mols) and per-molecule readout is one
-segment_sum, which XLA lowers efficiently on TPU.  Message passing is one (128, 512) x (512, H) MXU
-matmul per tile (see ops/aggregate.py) with ~90+% real-atom occupancy vs
+segment_sum.  Message passing is one (128, 512) x (512, H) matmul per
+tile (see ops/aggregate.py) with ~90+% real-atom occupancy vs
 ~25-55% for pad-to-max batches of drug-sized molecules.
 
 No reference counterpart (the reference's only batching is pad-to-max,

@@ -108,8 +108,8 @@ class PairEvaluator:
 
 
 class PackedPairEvaluator:
-    """PairEvaluator over the packed COO fast path (the serving path:
-    ~3x the padded path's throughput on a v5e).  Usable for any run whose
+    """PairEvaluator over the packed COO fast path (the serving path).
+    Usable for any run whose
     config rode a packed compute path (method in PACKED_ENCODERS, no
     supernodes/symmetric); co-attention configs ride the compact coattn
     layout.  Produces the same logits and embeddings as PairEvaluator

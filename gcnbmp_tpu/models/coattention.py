@@ -7,10 +7,10 @@ shared signature
     attn(atoms_1 [B,N1,H], g_1 [B,D], atoms_2 [B,N2,H], g_2 [B,D],
          mask1=None, mask2=None) -> (compact_1 [B,D'], compact_2 [B,D'])
 
-TPU-first re-design: the reference materializes (mb*N1*N2, hidden) tiles
-to feed chainer Bilinear row-wise (e.g. nie_coattention.py:372-396 — its
+Re-design: the reference materializes (mb*N1*N2, hidden) tiles to feed
+chainer Bilinear row-wise (e.g. nie_coattention.py:372-396 — its
 "pairwise hot loop"); here every pairwise energy is an einsum
-(SDDMM-style) that XLA maps straight onto the MXU with no data blow-up.
+(SDDMM-style) that XLA lowers to batched matmuls with no data blow-up.
 
 Masking: the reference runs on pad-to-max batches with no atom masking.
 Pass mask1/mask2 (1 = real atom) for corrected padded behavior; None
@@ -34,7 +34,7 @@ from typing import Callable, Dict, Optional, Type
 
 import jax
 import jax.numpy as jnp
-from flax import linen as nn
+from gcnbmp_tpu import nn
 
 from gcnbmp_tpu.models.layers import GraphLinear, LecunNormal
 from gcnbmp_tpu.ops.circular import circular_correlation_auto

@@ -21,7 +21,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import optax
-from flax import linen as nn
+from gcnbmp_tpu import nn
 
 
 def normalize_adj(adj: np.ndarray) -> np.ndarray:

@@ -24,7 +24,7 @@ from typing import Any, Dict, Optional, Tuple
 
 import jax
 import jax.numpy as jnp
-from flax import linen as nn
+from gcnbmp_tpu import nn
 
 from gcnbmp_tpu.models.layers import (
     ChainerGRUCell,
@@ -65,7 +65,7 @@ class GGNNMessage(nn.Module):
 
     ``dtype``: computation dtype for the message matmul and aggregation
     operands (params stay f32; the aggregation accumulates in f32 via
-    preferred_element_type) — jnp.bfloat16 = mixed-precision MXU path."""
+    preferred_element_type) — jnp.bfloat16 = mixed-precision path."""
 
     hidden_dim: int
     dtype: Any = None

@@ -22,7 +22,7 @@ from typing import Any, Dict, Optional, Tuple
 
 import jax
 import jax.numpy as jnp
-from flax import linen as nn
+from gcnbmp_tpu import nn
 
 from gcnbmp_tpu.models.ggnn import GatedReadout, GGNNMessage
 from gcnbmp_tpu.models.layers import (

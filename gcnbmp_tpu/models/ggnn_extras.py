@@ -23,7 +23,7 @@ from typing import Callable, List, Optional
 
 import jax
 import jax.numpy as jnp
-from flax import linen as nn
+from gcnbmp_tpu import nn
 
 from gcnbmp_tpu.models.layers import LecunNormal
 

@@ -26,7 +26,7 @@ from typing import Any, Dict, Optional, Tuple
 import jax
 import jax.numpy as jnp
 import numpy as np
-from flax import linen as nn
+from gcnbmp_tpu import nn
 
 from gcnbmp_tpu.chem.featurize import drugfp_atom_features
 from gcnbmp_tpu.chem.mol import Mol

@@ -10,7 +10,7 @@ from __future__ import annotations
 from typing import Callable, Sequence
 
 import jax.numpy as jnp
-from flax import linen as nn
+from gcnbmp_tpu import nn
 
 from gcnbmp_tpu.models.layers import Bilinear, LecunNormal, MLP
 from gcnbmp_tpu.ops.circular import circular_correlation_auto

@@ -12,18 +12,17 @@ from typing import Any, Callable, Sequence
 
 import jax
 import jax.numpy as jnp
-from flax import linen as nn
+from gcnbmp_tpu import nn
 
 # chainer_chemistry.config.MAX_ATOMIC_NUM — EmbedAtomID vocab size
 # (reference: models/ggnn.py:14,87).
 MAX_ATOMIC_NUM = 117
 
-# Lookup strategy for EmbedAtomID: one-hot matmul (MXU passes both
-# ways) vs gather (whose backward is a scatter-add into the 117-row
-# table, which XLA:TPU serializes).  Measured on the v5e flagship step
-# (scan bf16 h=32, SWEEPS_r03 onehot rows): one-hot 4.10 ms vs gather
-# 4.70 ms — 13% faster, numerically exact (a one-hot row select), so
-# it is the default; set GCNBMP_ONEHOT_EMBED=0 to A/B the gather.
+# Lookup strategy for EmbedAtomID: one-hot matmul (a matmul both ways)
+# vs gather (whose backward is a scatter-add into the 117-row table).
+# Numerically exact either way (a one-hot row select); the one-hot form
+# is the default from earlier tuning, not yet measured on the GPU; set
+# GCNBMP_ONEHOT_EMBED=0 to A/B the gather.
 import os as _os
 
 ONEHOT_EMBED = _os.environ.get("GCNBMP_ONEHOT_EMBED", "1") == "1"
@@ -35,8 +34,8 @@ class GraphLinear(nn.Module):
     """Linear over the last axis of (..., ch) — chainer_chemistry's
     GraphLinear (used throughout reference models/ggnn.py).
 
-    ``dtype`` is the flax computation dtype (params stay f32); set to
-    jnp.bfloat16 for mixed-precision MXU compute."""
+    ``dtype`` is the computation dtype (params stay f32); set to
+    jnp.bfloat16 for mixed-precision compute."""
 
     features: int
     use_bias: bool = True
@@ -69,15 +68,12 @@ class EmbedAtomID(nn.Module):
         )
         if ONEHOT_EMBED:
             # one-hot matmul instead of gather: the table is tiny (117
-            # rows) so the lookup is a (rows, V) x (V, H) MXU pass, and
-            # — the real win — the BACKWARD becomes onehot^T @ dh (a
-            # matmul) instead of a scatter-add into the table, which
-            # XLA:TPU serializes (profile_stages: the embed stage and
-            # its bwd scatter are among the step's slowest kernels).
-            # precision=HIGHEST: the TPU's default bf16 operand passes
-            # would round the table values (measured: 1% of embed-grad
-            # elements off vs gather); full f32 passes keep the lookup
-            # exact and the matmul is tiny either way.
+            # rows) so the lookup is a (rows, V) x (V, H) matmul, and
+            # the BACKWARD becomes onehot^T @ dh (a matmul) instead of a
+            # scatter-add into the table.
+            # precision=HIGHEST: a reduced-precision default (bf16 or
+            # TF32 operand passes) would round the table values; full
+            # f32 keeps the lookup exact and the matmul is tiny.
             # clamp ids like jnp.take does, so both paths share the same
             # out-of-range semantics (one_hot alone would yield all-zero
             # rows where take clamps to the last table row) and the flag
@@ -109,12 +105,11 @@ class ChainerGRUCell(nn.Module):
     # Optionally merge the three x-side matmuls into one (.., 2H) x
     # (2H, 3H) pass and the two h-side gate matmuls into (.., H) x
     # (H, 2H): identical math and identical parameter tree (kernels
-    # concatenated at apply time).  Measured SLOWER on TPU v5e (8.5 vs
-    # 7.1 ms/step for the packed flagship) — XLA schedules the unmerged
-    # form better — so off by default; kept for other hardware.
+    # concatenated at apply time).  Off by default (the unmerged form
+    # scheduled better in earlier tuning; not yet measured on the GPU).
     merge_matmuls: bool = False
-    # flax computation dtype (params stay f32); jnp.bfloat16 for
-    # mixed-precision MXU compute
+    # computation dtype (params stay f32); jnp.bfloat16 for
+    # mixed-precision compute
     dtype: Any = None
 
     @nn.compact

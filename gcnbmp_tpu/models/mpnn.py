@@ -10,7 +10,7 @@ through a 2-layer MLP to a ch x ch matrix M(e_ij); messages are
 concatenated.  Crucially the MLP has biases, so non-edges contribute
 M(0) != 0 — every node receives a dense background term.
 
-TPU-first rewrite: e_ij takes only 5 distinct values (4 one-hots + zero),
+Rewrite: e_ij takes only 5 distinct values (4 one-hots + zero),
 so instead of evaluating the MLP at N^2 pairs and doing an
 (N*ch x N*ch) blocked matmul (the reference's approach), we precompute
 the 5 matrices M_0..M_4 once per call and compute
@@ -28,7 +28,7 @@ from __future__ import annotations
 from typing import Any, Dict, Optional, Tuple
 
 import jax.numpy as jnp
-from flax import linen as nn
+from gcnbmp_tpu import nn
 
 from gcnbmp_tpu.models.ggnn import GGNNMessage
 from gcnbmp_tpu.models.layers import ChainerGRUCell, EmbedAtomID, LecunNormal, MAX_ATOMIC_NUM

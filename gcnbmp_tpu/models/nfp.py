@@ -16,7 +16,7 @@ from typing import Any, Dict, Optional, Tuple
 
 import jax
 import jax.numpy as jnp
-from flax import linen as nn
+from gcnbmp_tpu import nn
 
 from gcnbmp_tpu.models.layers import EmbedAtomID, GraphLinear, MAX_ATOMIC_NUM
 from gcnbmp_tpu.models.readouts import NFPReadout

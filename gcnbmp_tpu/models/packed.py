@@ -2,8 +2,8 @@
 GGNN so trained weights swap freely between the two layouts.
 
 Consumes PackedGraphBatch arrays (data/packing.py): tiles of 128 atoms
-holding several molecules each.  Message passing runs per tile on the
-MXU; the gated readout becomes a segment-sum over molecule ids.
+holding several molecules each.  Message passing runs per tile as
+batched dense matmuls; the gated readout becomes a segment-sum over molecule ids.
 Parameter tree matches models/ggnn.py exactly: embed, update_i/message/
 dense, gru/{W,U,...}, readout_0/{i,j}.
 """
@@ -15,7 +15,7 @@ from typing import Any, Dict, Tuple
 
 import jax
 import jax.numpy as jnp
-from flax import linen as nn
+from gcnbmp_tpu import nn
 
 from gcnbmp_tpu.models.ggnn import GGNNMessage
 from gcnbmp_tpu.models.layers import (
@@ -71,13 +71,11 @@ def _segment_mol_sum(g_nodes, mol_id, num_mols: int):
     No ``indices_are_sorted`` hint: flattened mol_id is NOT globally
     sorted (each tile's trailing padding slots carry num_mols, then the
     next tile restarts lower), so the hint would be implementation-
-    defined — and the unsorted lowering measures FASTER on the v5e
-    anyway (1.23 vs 1.45 ms standalone at B=2048).
+    defined.
 
     ``GCNBMP_MOLSUM_DENSE=1`` swaps in the scatter-free dense form
-    (_mol_sum_dense): the segment_sum's scatter-add is the costliest
-    single op class left in the headline step (1.23 ms standalone at
-    B=2048), and the packed layout admits a gather-only equivalent."""
+    (_mol_sum_dense): the packed layout admits a gather-only equivalent
+    of the segment_sum's scatter-add."""
     if MOL_SUM_DENSE:
         return _mol_sum_dense(g_nodes, mol_id, num_mols, _MOL_SUM_NMAX)
     flat = g_nodes.reshape(-1, g_nodes.shape[-1])
@@ -162,7 +160,7 @@ class PackedGGNN(nn.Module):
     # readout).  Param names match the padded GGNN (layer_aggregator,
     # readout_agg) so weights swap between layouts.
     layer_aggregator: Any = None
-    # jnp.bfloat16 -> message/GRU matmuls run on the MXU in bf16 with f32
+    # jnp.bfloat16 -> message/GRU matmuls run in bf16 with f32
     # accumulation (params stay f32); None = full f32
     compute_dtype: Any = None
 
@@ -303,28 +301,10 @@ class PackedNFPReadout(nn.Module):
 # (A/B via GCNBMP_SET2SET_DENSE=0); parity + training tests cover both.
 SET2SET_DENSE = os.environ.get("GCNBMP_SET2SET_DENSE", "1") == "1"
 
-# Fused Pallas Set2Set (round 5, VERDICT r4 #3): all processing steps
-# in one kernel over the dense atom table (ops/set2set_kernel.py).
-# Measured +2.7% on the MPNN step (16.454 vs 16.892 ms, SWEEPS_r05
-# mpnn_s2s_pallas rows), VJP-parity-tested against the dense path.
-# "auto" (default) enables it on accelerator backends and keeps the
-# XLA dense path on CPU (Pallas needs interpret mode there); 1/0 force.
-_S2SP_ENV = os.environ.get("GCNBMP_SET2SET_PALLAS", "auto")
-SET2SET_PALLAS = None if _S2SP_ENV == "auto" else _S2SP_ENV == "1"
-
-
-def _set2set_pallas_enabled() -> bool:
-    if SET2SET_PALLAS is not None:
-        return SET2SET_PALLAS
-    import jax
-
-    return jax.default_backend() != "cpu"
-
 # Gather-only VJP for the slot-table atom gathers (round 4): the plain
-# jnp.take backward is a (rows, ch) scatter-add — TPU scatters are
-# row-serialized and were the slowest kernel class in PROFILE_r04.  The
-# packed layout's contiguous-run invariant makes the transpose a pure
-# gather (ops/slotgather.py).  Bit-identical forward, exact backward;
+# jnp.take backward is a (rows, ch) scatter-add; the packed layout's
+# contiguous-run invariant makes the transpose a pure gather
+# (ops/slotgather.py).  Bit-identical forward, exact backward;
 # A/B via GCNBMP_GATHER_VJP=0.
 GATHER_VJP = os.environ.get("GCNBMP_GATHER_VJP", "1") == "1"
 
@@ -348,10 +328,9 @@ class PackedSet2Set(nn.Module):
 
     channels: int
     processing_steps: int = 3
-    # dense mode (round 4, VERDICT r3 #7): the segment-op form costs
-    # +17.3 ms/step at B=2048 (SWEEPS_r04 mpnn_parts — per-step
+    # dense mode (round 4): the segment-op form runs per-step
     # q-gathers whose backwards are scatter-adds, plus 3 segment ops
-    # per processing step).  Dense mode gathers each molecule's atoms
+    # per processing step.  Dense mode gathers each molecule's atoms
     # ONCE into a (num_mols, n_max, ch) table via an on-device
     # sort-built slot table, then every processing step is dense masked
     # softmax + two small einsums — zero segment ops in the loop.
@@ -381,24 +360,6 @@ class PackedSet2Set(nn.Module):
             else:
                 atoms = jnp.take(flat, slots.reshape(-1), axis=0).reshape(
                     num_mols, self.dense_n_max, ch) * amask[..., None]
-            if _set2set_pallas_enabled() and not self.is_initializing():
-                # round 5 (VERDICT r4 #3): all processing steps in ONE
-                # Pallas kernel (LSTM + masked softmax resident in
-                # VMEM); params read from the SAME flax lstm cell so
-                # checkpoints swap freely between paths
-                from gcnbmp_tpu.ops.set2set_kernel import fused_set2set
-
-                lp = cell.variables["params"]
-                wx = jnp.concatenate(
-                    [lp[f"i{c}"]["kernel"] for c in "ifgo"], axis=-1)
-                wh = jnp.concatenate(
-                    [lp[f"h{c}"]["kernel"] for c in "ifgo"], axis=-1)
-                bb = jnp.concatenate(
-                    [lp[f"h{c}"]["bias"] for c in "ifgo"], axis=-1
-                ).reshape(1, -1)
-                q_star = fused_set2set(
-                    self.processing_steps, atoms, amask, wx, wh, bb)
-                return jnp.where(overflow, jnp.nan, q_star)
             neg = jnp.asarray(-1e9, flat.dtype)
             for _ in range(self.processing_steps):
                 carry, q = cell(carry, q_star)       # (M, ch)
@@ -490,44 +451,22 @@ EDGENET_FLAT = True
 # free reshape for the out direction; ONE hoisted transpose per
 # forward, not per layer, for the in direction) and applies the
 # per-edge-type matrices to the aggregate afterwards (4 small
-# sublane-aligned matmuls per direction).  No hm tensor, no per-layer
-# adjacency transposes.  MEASURED SLOWER on the v5e (mpnn_ab3,
-# SWEEPS_r04: 36.5 vs 32.9 ms at h=32 — the (2T, 4T)x(4T, ch) form's
-# longer 512-contraction beats the (8T, T)x(T, ch) form's shorter one;
-# XLA already CSEs the per-layer transposes) — kept OFF by default as
-# a measured dead end; A/B via GCNBMP_EDGENET_MODE=aggfirst.
+# matmuls per direction).  No hm tensor, no per-layer adjacency
+# transposes.  Off by default; A/B via GCNBMP_EDGENET_MODE=aggfirst.
 EDGENET_AGGFIRST = (
     os.environ.get("GCNBMP_EDGENET_MODE", "dotgen") == "aggfirst"
 )
 # Round 5: contraction-side transposes.  The flat form materializes
 # ``both`` (P, 2T, 4T) — TWICE the adjacency — solely so each layer is
-# one matmul; but the MXU consumes either operand orientation natively,
-# so both directed aggregations can be dot_generals straight on the
+# one matmul; but dot_general consumes either operand orientation, so
+# both directed aggregations can be dot_generals straight on the
 # raw (P, 4, T, T) adjacency (out: contract (e, j); in: contract
 # (e, i)) with ZERO transposed copies and HALF the per-layer adjacency
-# bytes.  Measured +1.9% on the MPNN step (16.265 vs 16.575 ms,
-# SWEEPS_r05 mpnn_dotgen rows) — the DEFAULT since round 5
-# (GCNBMP_EDGENET_MODE=flat restores the r4 form for A/Bs).
+# bytes.  The default (GCNBMP_EDGENET_MODE=flat restores the r4 form
+# for A/Bs).
 EDGENET_DOTGEN = (
     os.environ.get("GCNBMP_EDGENET_MODE", "dotgen") == "dotgen"
 )
-# Round 5: fused multi-layer MPNN kernel (ops/fused_mpnn.py) —
-# adjacency + molecule-equality matrix VMEM-resident across all layers,
-# tied or untied.  Measured **16.26 -> 11.28 ms (+44%)** on the MPNN
-# bench step (SWEEPS_r05 mpnn_fused rows); "auto" (default) enables it
-# on accelerator backends, the XLA path stays on CPU; 1/0 force.
-_MPNNF_ENV = os.environ.get("GCNBMP_MPNN_FUSED", "auto")
-MPNN_FUSED = None if _MPNNF_ENV == "auto" else _MPNNF_ENV == "1"
-
-
-def _mpnn_fused_enabled() -> bool:
-    if MPNN_FUSED is not None:
-        return MPNN_FUSED
-    import jax
-
-    return jax.default_backend() != "cpu"
-
-
 class PackedEdgeNet(nn.Module):
     """Packed twin of mpnn.EdgeNet: per-edge-type matrix messages plus
     the PER-MOLECULE non-edge background term M0 @ sum_{j in mol} h_j
@@ -714,64 +653,6 @@ class PackedMPNN(nn.Module):
             for i in range(n_message)
         ]
         gru_states = [jnp.zeros_like(h) for _ in range(n_message)]
-        if (_mpnn_fused_enabled() and self.message_func == "edgenet"
-                and not self.is_initializing()):
-            # round 5: all layers in one Pallas kernel with the flat
-            # adjacency + molecule-equality matrix VMEM-resident
-            # (ops/fused_mpnn.py); params read from the SAME flax
-            # children so checkpoints swap freely.  Per-layer weight
-            # stacks (the tied case replicates one set — the stack's
-            # VJP sums the per-layer grads back, fused_ggnn-style).
-            from gcnbmp_tpu.ops.fused_mpnn import build_molmat, fused_mpnn
-
-            ch = self.hidden_dim
-            basis = jnp.concatenate([jnp.zeros((1, 4)), jnp.eye(4)], axis=0)
-            wt_l, m0t_l = [], []
-            gru_l = {k: [] for k in
-                     ("wz", "uz", "bz", "wr", "ur", "br", "wn", "un", "bn")}
-            for step in range(self.n_layers):
-                k = 0 if self.weight_tying else step
-                ev = msgs[k].variables["params"]
-                zz = nn.relu(basis @ ev["nn1"]["kernel"]
-                             + ev["nn1"]["bias"])
-                mats = (zz @ ev["nn2"]["kernel"] + ev["nn2"]["bias"]
-                        ).reshape(5, ch, ch)
-                m0, m_types = mats[0], mats[1:]
-                wt_l.append(jnp.transpose(m_types - m0, (0, 2, 1)))
-                m0t_l.append(m0.T)
-                g = grus[k].variables["params"]
-                gru_l["wz"].append(g["W_z"]["kernel"])
-                gru_l["uz"].append(g["U_z"]["kernel"])
-                gru_l["bz"].append(g["W_z"]["bias"] + g["U_z"]["bias"])
-                gru_l["wr"].append(g["W_r"]["kernel"])
-                gru_l["ur"].append(g["U_r"]["kernel"])
-                gru_l["br"].append(g["W_r"]["bias"] + g["U_r"]["bias"])
-                gru_l["wn"].append(g["W"]["kernel"])
-                gru_l["un"].append(g["U"]["kernel"])
-                gru_l["bn"].append(g["W"]["bias"] + g["U"]["bias"])
-            gru_w = {k: jnp.stack(v) for k, v in gru_l.items()}
-            p_, e_, t_, _ = adj.shape
-            adj_flat = jnp.transpose(adj, (0, 2, 1, 3)).reshape(
-                p_, t_, e_ * t_)
-            cd = self.compute_dtype
-            if cd is not None:
-                adj_flat = adj_flat.astype(cd)
-            molmat = build_molmat(mol_id, node_mask,
-                                  cd if cd is not None else jnp.float32)
-            h = fused_mpnn(self.n_layers, self.weight_tying, h,
-                           adj_flat, molmat,
-                           jnp.stack(wt_l), jnp.stack(m0t_l), gru_w)
-            if self.readout_func == "ggnn":
-                g_nodes = PackedCommonReadout(
-                    self.out_dim, name="readout_0"
-                )(h, h0, node_mask)
-                gg = _segment_mol_sum(g_nodes, mol_id, num_mols)
-            else:
-                gg = PackedMPNNReadout(
-                    self.out_dim, self.hidden_dim,
-                    s2s_n_max=self.s2s_n_max, name="readout_0",
-                )(h, mol_id, node_mask, num_mols)
-            return gg, {"atoms": h, "h0": h0}
         # EdgeNet adjacency layouts are loop-invariant — build ONCE per
         # forward: the aggregate-first (P, 8T, T) stack, or the flat
         # form's (P, 2T, 4T) ``both`` (the step's dominant HBM tensor;
@@ -987,9 +868,8 @@ class PackedCoattnPairPredictor(nn.Module):
     head: nn.Module          # name='head'
     adj_dtype: Any = jnp.float32
     # None -> module global GATHER_VJP.  The Trainer pins False for
-    # scan mode: the gather-only table VJP is +10.7% per-step but
-    # MEASURED SLOWER under lax.scan (8.62 vs 6.80 ms — SWEEPS_r05
-    # coattn_scan rows), so the mode follows the execution mode.
+    # single-device scan mode, so the VJP form follows the execution
+    # mode (an earlier tuning choice, not yet measured on the GPU).
     gather_vjp: Any = None
 
     @nn.compact
@@ -1097,136 +977,6 @@ def compact_gwm_arrays(batch) -> Tuple:
         raise ValueError("COO batch has no supernode features; build it "
                          "with attach_supers_coo")
     return nodes, e_packed, n_edges, batch.supers, left, right
-
-
-# Round 4: run the gated readout INSIDE the fused Pallas kernel
-# (ops/fused_ggnn.fused_ggnn_readout) — saves the h writeback + XLA
-# re-reads + several launches.  A/B-gated for hardware sweeps.
-FUSED_READOUT = os.environ.get("GCNBMP_FUSED_READOUT") == "1"
-
-
-def _fused_encoder_g_nodes(enc, ep, h0, adj, node_mask):
-    """The fused message/GRU stack, returning readout g_nodes — either
-    kernel-fused readout (FUSED_READOUT) or the XLA readout epilogue."""
-    from gcnbmp_tpu.ops.fused_ggnn import (
-        fused_ggnn,
-        fused_ggnn_readout,
-        params_to_fused,
-    )
-
-    msg_w, msg_b, gru = params_to_fused(
-        ep, enc.n_layers, enc.weight_tying, enc.hidden_dim
-    )
-    ro = ep["readout_0"]
-    if FUSED_READOUT:
-        return fused_ggnn_readout(
-            enc.n_layers, h0, adj, msg_w, msg_b, gru, node_mask,
-            ro["i"]["dense"]["kernel"], ro["i"]["dense"]["bias"],
-            ro["j"]["dense"]["kernel"], ro["j"]["dense"]["bias"],
-        )
-    h = fused_ggnn(enc.n_layers, h0, adj, msg_w, msg_b, gru)
-    gate = jax.nn.sigmoid(
-        jnp.concatenate([h, h0], axis=-1) @ ro["i"]["dense"]["kernel"]
-        + ro["i"]["dense"]["bias"]
-    )
-    g_nodes = gate * (h @ ro["j"]["dense"]["kernel"] + ro["j"]["dense"]["bias"])
-    return g_nodes * node_mask[..., None]
-
-
-def _embed_lookup(emb, atom_ids):
-    """Atom-ID lookup for the fused-path helpers, matching EmbedAtomID's
-    strategy: one-hot MXU matmul (exact; backward is a matmul instead of
-    a scatter-add — 13% step win, see models/layers.py ONEHOT_EMBED)."""
-    from gcnbmp_tpu.models.layers import ONEHOT_EMBED
-
-    if ONEHOT_EMBED:
-        # clamp like jnp.take so both paths share out-of-range
-        # semantics (ADVICE r3 #4; see models/layers.EmbedAtomID)
-        atom_ids = jnp.clip(atom_ids, 0, emb.shape[0] - 1)
-        oh = jax.nn.one_hot(atom_ids, emb.shape[0], dtype=emb.dtype)
-        return jnp.matmul(oh, emb, precision=jax.lax.Precision.HIGHEST)
-    return jnp.take(emb, atom_ids, axis=0)
-
-
-def fused_pair_logits(
-    predictor: "PackedPairPredictor",
-    params,
-    atom_ids,
-    adj,
-    mol_id,
-    node_mask,
-    left_index,
-    right_index,
-):
-    """Same computation as ``predictor.apply`` but with the message/GRU
-    stack running in the fused Pallas kernel (ops/fused_ggnn.py).
-    Differentiable end-to-end (custom VJP inside); numerically equal to
-    the XLA path and parameter-compatible with it."""
-    enc: PackedGGNN = predictor.encoder
-    ep = params["encoder"]
-    h0 = _embed_lookup(ep["embed"]["embedding"], atom_ids)
-    g_nodes = _fused_encoder_g_nodes(enc, ep, h0, adj, node_mask)
-    num_mols = 2 * left_index.shape[0]
-    g = _segment_mol_sum(g_nodes, mol_id, num_mols)
-    g1 = jnp.take(g, left_index, axis=0)
-    g2 = jnp.take(g, right_index, axis=0)
-    return predictor.head.apply({"params": params["head"]}, g1, g2)
-
-
-def fused_compact_logits(
-    predictor,
-    params,
-    nodes,
-    e_packed,
-    n_edges,
-    left_index,
-    right_index,
-):
-    """``fused_pair_logits`` over the wire-compact COO batch encoding
-    (compact_coo_arrays): decodes the bit-packed edges on device,
-    scatter-builds the adjacency DIRECTLY in the fused kernel's flat
-    (P, T, 4T) layout (ops/aggregate.adj_from_coo_flat — no transpose
-    pass), and runs the message/GRU stack in the fused Pallas kernel.
-    This is the fused+COO production path: host->device traffic is the
-    compact wire tuple (~#edges ints), the dense adjacency only ever
-    exists in HBM, and the kernel reads it once per fwd/bwd instead of
-    once per layer.  Differentiable end-to-end; parameter-compatible
-    with PackedPairPredictorCOOCompact (same tree)."""
-    from gcnbmp_tpu.ops.aggregate import adj_from_coo_flat
-
-    enc: PackedGGNN = predictor.encoder
-    num_mols = 2 * left_index.shape[0]
-    (atom_ids, mol_id, node_mask, e_tile, e_type, e_src, e_dst,
-     e_mask) = decode_compact_wire(nodes, e_packed, n_edges, num_mols)
-    p, t = atom_ids.shape
-    adj_flat = adj_from_coo_flat(
-        e_tile, e_type, e_src, e_dst, e_mask, num_tiles=p, tile=t,
-        dtype=getattr(predictor, "adj_dtype", jnp.float32),
-    )
-    ep = params["encoder"]
-    h0 = _embed_lookup(ep["embed"]["embedding"], atom_ids)
-    g_nodes = _fused_encoder_g_nodes(enc, ep, h0, adj_flat, node_mask)
-    g = _segment_mol_sum(g_nodes, mol_id, num_mols)
-    g1 = jnp.take(g, left_index, axis=0)
-    g2 = jnp.take(g, right_index, axis=0)
-    return predictor.head.apply({"params": params["head"]}, g1, g2)
-
-
-class FusedCompactApply:
-    """Adapter giving ``fused_compact_logits`` the ``.apply(variables,
-    *args)`` calling convention of a flax predictor, so the generic
-    train-step factories (make_packed_coo_train_step,
-    make_packed_scan_train_step) route through the fused Pallas kernel
-    unchanged.  Wraps a PackedPairPredictorCOOCompact; the parameter
-    tree is that predictor's (eval/checkpointing see no difference)."""
-
-    def __init__(self, predictor: "PackedPairPredictorCOOCompact"):
-        self.predictor = predictor
-
-    def apply(self, variables, *args):
-        return fused_compact_logits(
-            self.predictor, variables["params"], *args
-        )
 
 
 PACKED_ENCODERS = ("ggnn", "relgcn", "gin", "nfp", "mpnn")

@@ -19,7 +19,7 @@ from typing import Callable, Optional
 
 import jax
 import jax.numpy as jnp
-from flax import linen as nn
+from gcnbmp_tpu import nn
 
 from gcnbmp_tpu.models.layers import GraphLinear, LecunNormal
 

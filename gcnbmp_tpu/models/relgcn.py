@@ -12,7 +12,7 @@ from __future__ import annotations
 from typing import Any, Dict, Optional, Tuple
 
 import jax.numpy as jnp
-from flax import linen as nn
+from gcnbmp_tpu import nn
 
 from gcnbmp_tpu.models.layers import EmbedAtomID, GraphLinear, MAX_ATOMIC_NUM
 from gcnbmp_tpu.models.readouts import CommonGGNNReadout

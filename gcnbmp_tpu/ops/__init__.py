@@ -1,9 +1,7 @@
-"""Compute ops: XLA reference implementations + Pallas TPU kernels.
+"""Compute ops for the hot paths, in plain JAX that XLA compiles.
 
-Every op has an XLA (pure jnp) implementation that serves as the semantic
-reference, and — where profitable — a Pallas kernel tuned for the packed
-many-small-graphs layout.  Dispatch is by explicit function choice at the
-model layer; numerics are verified against each other in tests.
+Each op keeps a straightforward reference form beside the one the models
+use; tests check them against each other.
 """
 
 from gcnbmp_tpu.ops.aggregate import edge_type_aggregate

@@ -5,15 +5,14 @@ Semantics (reference: models/ggnn.py:222-242): per edge type e,
 
     out[b, i, h] = sum_e sum_j adj[b, e, i, j] * msg[b, e, j, h]
 
-TPU mapping: the contraction is expressed so XLA tiles it onto the MXU as
-a single batched matmul with contraction length ``4*N`` — we flatten the
+The contraction is expressed as a single batched matmul with contraction length ``4*N`` — we flatten the
 edge-type axis into the contraction instead of looping over 4 small
 matmuls:
 
     out[b, i, h] = sum_{(e,j)} adj[b, i, (e,j)] * msg[b, (e,j), h]
 
 which is exactly ``adj_flat (B, N, 4N) @ msg_flat (B, 4N, H)``.  For
-N=128 tiles this is one (128, 512) x (512, H) MXU pass per graph-tile —
+N=128 tiles this is one (128, 512) x (512, H) matmul per graph-tile —
 no wasted flops relative to the 4-way loop and a 4x longer (better)
 contraction dimension.
 """
@@ -70,11 +69,10 @@ def adj_from_coo(
     This keeps the host->device transfer at ~#edges ints per batch instead
     of the P*4*T*T dense tensor — the adjacency itself only ever exists in
     HBM.  No reference counterpart (its batching is host-side pad-to-max,
-    chainer_chemistry concat_mols); TPU-first input path per SURVEY §7.1.
+    chainer_chemistry concat_mols); input path per SURVEY §7.1.
 
-    The scatter uses FLATTENED 1-D indices: XLA lowers a 1-D scatter-add
-    ~28x faster than the equivalent 4-D scatter on TPU (measured 2.1 ms
-    vs 58 ms standalone for 63k edges into (467,4,128,128)).  Flat
+    The scatter uses FLATTENED 1-D indices (one scatter-add into a flat
+    buffer instead of a 4-D scatter).  Flat
     'drop' only drops indices beyond the whole array, so per-component
     bounds (e.g. e_src >= tile) are NOT individually dropped — padding
     edges are harmless regardless (mask 0 adds zero wherever it lands),
@@ -86,29 +84,6 @@ def adj_from_coo(
     flat = jnp.zeros((num_tiles * num_edge_types * tile * tile,), dtype)
     flat = flat.at[idx].add(e_mask.astype(dtype), mode="drop")
     return flat.reshape(num_tiles, num_edge_types, tile, tile)
-
-
-def adj_from_coo_flat(
-    e_tile: jnp.ndarray,
-    e_type: jnp.ndarray,
-    e_src: jnp.ndarray,
-    e_dst: jnp.ndarray,
-    e_mask: jnp.ndarray,
-    num_tiles: int,
-    tile: int,
-    num_edge_types: int = 4,
-    dtype=jnp.float32,
-) -> jnp.ndarray:
-    """adj_from_coo in the AGG_FLAT layout the fused Pallas kernel
-    consumes directly: (P, T, E*T) with adj_flat[p, i, e*T + j] =
-    adj[p, e, i, j].  One 1-D scatter-add, no transpose afterwards —
-    this is the on-device adjacency build for the fused+COO production
-    path (the dense-layout twin is adj_from_coo + a (0,2,1,3) transpose,
-    which XLA materializes as an extra HBM pass)."""
-    idx = ((e_tile * tile + e_src) * num_edge_types + e_type) * tile + e_dst
-    flat = jnp.zeros((num_tiles * tile * num_edge_types * tile,), dtype)
-    flat = flat.at[idx].add(e_mask.astype(dtype), mode="drop")
-    return flat.reshape(num_tiles, tile, num_edge_types * tile)
 
 
 def coo_bounds_check(

@@ -4,18 +4,12 @@ Semantics (reference: models/link_prediction/hole.py:69-91):
 ``ifft(conj(fft(a)) * fft(b)).real`` — the reference implements it with
 explicit real/imag FFT pairs because Chainer lacked complex support.
 
-TPU mapping: real-input FFTs via ``jnp.fft.rfft`` halve the spectrum work
-and XLA lowers them natively.  A time-domain formulation is also
-provided: for dim D the correlation equals
-``corr[k] = sum_d a[d] * b[(d + k) mod D]`` — a (D, D) matmul against a
-rolled copy of ``b`` that hits the MXU and avoids FFT entirely.
-
-Measured on the v5e (fwd+bwd, B=2048, docs/SWEEPS_r02.jsonl 'circ'):
-matmul 373 us vs rfft 478 us at D=16; rfft wins from D=32 up (346 vs
-404 us at D=32; 312 vs 1661 us at D=128 — the O(D^2) gather-built
-circulant loses).  ``circular_correlation_auto`` dispatches on that
-boundary; either way the op is dispatch-latency-bound at these sizes
-(~0.3 ms against a 4.6 ms train step when fused into it: negligible).
+Real-input FFTs via ``jnp.fft.rfft`` halve the spectrum work and XLA
+lowers them natively.  A time-domain formulation is also provided: for
+dim D the correlation equals ``corr[k] = sum_d a[d] * b[(d + k) mod D]``
+— a (D, D) matmul against a rolled copy of ``b`` that avoids FFT
+entirely.  ``circular_correlation_auto`` picks the form by D
+(MATMUL_MAX_D).
 """
 
 from __future__ import annotations
@@ -23,8 +17,19 @@ from __future__ import annotations
 import jax
 import jax.numpy as jnp
 
-# measured crossover (v5e): time-domain matmul wins below this D
-MATMUL_MAX_D = 16
+# time-domain matmul form up to this D, rfft above.  Device time of one
+# fwd+bwd at B=2048 on an NVIDIA H100 80GB HBM3 (400 W limit;
+# chip_smoke.py phase d, chained in one jitted scan): D=16 matmul 12.3 us
+# vs rfft 36.4 us; D=32 matmul 32.1 vs rfft 45.5 us; D=64 rfft 48.6 vs
+# matmul 115.6 us.
+MATMUL_MAX_D = 32
+
+
+def _check_shapes(a, b):
+    if a.shape != b.shape:
+        raise ValueError(
+            "circular correlation needs operands of the same shape, got "
+            f"{a.shape} and {b.shape}")
 
 
 def _corr_raw(a: jnp.ndarray, b: jnp.ndarray) -> jnp.ndarray:
@@ -51,10 +56,13 @@ def circular_correlation(a: jnp.ndarray, b: jnp.ndarray) -> jnp.ndarray:
     rfft/irfft break shard_map's varying-axis checking, and the
     forward-mode-only FFTs here are also cheaper than AD's complex
     intermediate chain)."""
+    _check_shapes(a, b)
     return _corr_raw(a, b)
 
 
 def _corr_fwd(a, b):
+    # the closed-form adjoints below assume equal operand shapes
+    _check_shapes(a, b)
     return _corr_raw(a, b), (a, b)
 
 
@@ -70,12 +78,12 @@ circular_correlation.defvjp(_corr_fwd, _corr_bwd)
 
 
 def circular_correlation_matmul(a: jnp.ndarray, b: jnp.ndarray) -> jnp.ndarray:
-    """MXU-friendly time-domain form (identical math, O(D^2) flops).
+    """Time-domain form (identical math, O(D^2) flops).
 
     Builds the circulant matrix of ``b`` once per row:
     ``C[d, k] = b[(d + k) % D]``; then ``corr = a @ C`` — for small D
     (16-128 as used by the DDI heads) the flops are negligible and the
-    matmul fuses into the batch dimension on the MXU.
+    matmul batches over the leading dimensions.
     """
     d = a.shape[-1]
     idx = (jnp.arange(d)[:, None] + jnp.arange(d)[None, :]) % d
@@ -84,9 +92,8 @@ def circular_correlation_matmul(a: jnp.ndarray, b: jnp.ndarray) -> jnp.ndarray:
 
 
 def circular_correlation_auto(a: jnp.ndarray, b: jnp.ndarray) -> jnp.ndarray:
-    """Form dispatch on the measured v5e crossover: the MXU circulant
-    matmul for D <= 16, rfft otherwise (numbers in the module docstring).
-    Static shape -> the branch resolves at trace time."""
+    """Form dispatch on D: the circulant matmul for D <= MATMUL_MAX_D,
+    rfft otherwise.  Static shape -> the branch resolves at trace time."""
     if a.shape[-1] <= MATMUL_MAX_D:
         return circular_correlation_matmul(a, b)
     return circular_correlation(a, b)

@@ -3,11 +3,8 @@
 ``jnp.take(flat, slots)`` — the op both the dense Set2Set atom table
 (models/packed.PackedSet2Set) and the co-attention atom tables
 (models/packed.PackedCoattnPairPredictor) are built on — autodiffs to a
-scatter-add over the table's rows, and TPU scatters are row-serialized:
-the dense-Set2Set table backward alone scatter-adds num_mols*n_max rows
-per step (PROFILE_r04: scatters are among the slowest kernel class in
-the step; the one-hot-embed win in round 3 came from eliminating the
-same pattern).
+scatter-add over the table's rows: the dense-Set2Set table backward
+alone scatter-adds num_mols*n_max rows per step.
 
 This module removes the scatter by exploiting the packed-layout
 invariant (data/packing: molecules occupy CONTIGUOUS flat slot runs and

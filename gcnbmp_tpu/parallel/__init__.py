@@ -1,8 +1,7 @@
 """Parallel layer: device meshes, sharded train steps, collectives.
 
 The reference's entire distribution story is a 2-GPU ParallelUpdater
-(SURVEY §2.9); everything here is new TPU-native design: jax.sharding
-meshes with data-parallel batch sharding + tensor-sharded wide layers,
+(SURVEY §2.9); everything here is new design: jax.sharding meshes with data-parallel batch sharding + tensor-sharded wide layers,
 and (see ``edgeshard``) edge-partitioned graph sharding for multi-host
 scaling.
 """

@@ -5,8 +5,9 @@ Design (no reference counterpart — SURVEY §2.9): inputs are sharded on
 the batch axis across 'data'; selected weight matrices (the GGNN message
 linear's 4H output and head MLP hiddens) are sharded on their output axis
 across 'model'.  Everything else is replicated.  XLA inserts the psum for
-gradient reduction and the all-gathers for the model-sharded activations;
-collectives ride ICI.
+gradient reduction and the all-gathers for the model-sharded activations
+over the interconnect between the devices (NVLink between the GPUs of
+one host).
 """
 
 from __future__ import annotations

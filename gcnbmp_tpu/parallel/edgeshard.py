@@ -1,7 +1,7 @@
 """Graph-partitioned multi-device training over the packed layout.
 
 The BASELINE north star asks for edge-partitioned graph sharding with
-boundary-node exchange over ICI.  For THIS workload the TPU-native
+boundary-node exchange between devices.  For THIS workload a simpler
 answer is stronger: molecular graphs are tiny and disconnected, and the
 packed layout (data/packing.py) never splits a molecule across tiles —
 so sharding the TILE axis across devices produces ZERO cut edges.  All
@@ -9,7 +9,7 @@ message passing is device-local; the only cross-device traffic is
 
   1. one psum of the per-molecule embedding table g (num_mols x D —
      e.g. 4096 x 32 f32 = 0.5 MB) after the local masked segment-sum,
-     riding ICI once per step, overlapped by XLA with the head compute;
+     once per step, overlapped by XLA with the head compute;
   2. the gradient reduction XLA inserts for the replicated parameters.
 
 Pairs are sharded over the same axis for the head/loss compute, so the
@@ -208,7 +208,7 @@ def make_edgeshard_coattn_loss(
     (tiles are split contiguously in device order, so the gather
     reconstructs the global (P*T, H) flat layout the slot tables index).
     Payload: P*T*H floats (e.g. 7.6 MB at B=2048/h=32 — same order as
-    the molecule-table psum; rides ICI).  Everything else (affinity,
+    the molecule-table psum).  Everything else (affinity,
     softmax, head) is pair-local.  (VERDICT r3 #4: the pair-gather
     collective that puts co-attention on the multi-device path.)
 

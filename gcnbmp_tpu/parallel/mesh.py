@@ -17,10 +17,10 @@ def make_mesh(
     """A (data, model) mesh over the first ``n_devices`` devices.
 
     ``model_parallel`` splits the model axis; the rest is data parallel.
-    On a pod slice the data axis should map to the slower (DCN/outer ICI)
-    dimension and model to the faster inner ICI ring — jax's default
-    device order for TPU already enumerates ICI-adjacent chips
-    contiguously, so a simple reshape is the right layout.
+    A plain reshape of jax's device order: the GPUs of one host are
+    joined all to all by NVLink, so no device ordering is preferred;
+    across hosts jax orders devices host by host, which keeps a model
+    group inside one host.
     """
     devices = jax.devices()
     if n_devices is not None:

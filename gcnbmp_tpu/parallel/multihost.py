@@ -2,10 +2,10 @@
 
 The reference has no multi-host story (SURVEY §5.8: a 2-GPU
 ParallelUpdater is its entire distribution stack).  Here: standard
-jax.distributed bring-up for TPU pod slices, global-mesh construction
+jax.distributed bring-up across hosts, global-mesh construction
 spanning all hosts, and helpers to build globally-sharded arrays from
-per-host shards (collectives then ride ICI within a slice and DCN
-across slices, chosen by XLA from the mesh layout).
+per-host shards (collectives run over NVLink within a host and the
+network across hosts, chosen by XLA from the mesh layout).
 
 Executed for real by tests/test_multihost.py: two OS processes (4
 virtual CPU devices each, Gloo cross-process collectives) run
@@ -28,8 +28,9 @@ def initialize_multihost(
     num_processes: Optional[int] = None,
     process_id: Optional[int] = None,
 ) -> None:
-    """jax.distributed.initialize with TPU auto-detection (on Cloud TPU
-    all arguments are discovered from the environment)."""
+    """jax.distributed.initialize.  Without a cluster manager that JAX
+    detects, pass all three arguments (coordinator ``host:port``, process
+    count, this process's id)."""
     kwargs = {}
     if coordinator_address is not None:
         kwargs["coordinator_address"] = coordinator_address
@@ -45,7 +46,7 @@ def global_mesh(
     axis_names: Sequence[str] = ("data", "model"),
 ) -> Mesh:
     """Mesh over ALL devices across hosts; the model axis is laid out
-    within a host (fast ICI), data across hosts."""
+    within a host (NVLink), data across hosts."""
     devices = jax.devices()
     n = len(devices)
     if n % model_parallel:

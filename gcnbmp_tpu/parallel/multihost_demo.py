@@ -16,9 +16,8 @@ molecule-table psum + grad reduction across processes), then prints
 Single-process parity: ``reference_loss_and_checksum()`` runs the same
 step on an in-process 8-device mesh; the test asserts both processes
 print values equal to it (gradient parity through the cross-process
-collectives).  The same code path scales to real TPU pod slices, where
-jax.distributed discovers the topology and the collectives ride ICI/DCN
-instead of Gloo (SURVEY §2.9 / §5.8).
+collectives).  The same code path runs across GPU hosts, where the
+collectives run over NCCL instead of Gloo (SURVEY §2.9 / §5.8).
 """
 
 from __future__ import annotations

@@ -2,27 +2,22 @@
 
 Replaces the reference's three Chainer serializer mechanisms (SURVEY §5.4:
 trainer snapshots via save/load_npz, final model pickle, eval-time
-snapshot overlay) with orbax pytree checkpoints of
-{params, opt_state, step/epoch bookkeeping}; a msgpack fallback keeps the
-format dependency-light.
+snapshot overlay) with one ``.npz`` file of {params, opt_state,
+step/epoch bookkeeping}.  Leaves are stored in the template's flattening
+order and restored into the template's structure; loading never unpickles
+(``allow_pickle=False``), so a checkpoint cannot run code.
 """
 
 from __future__ import annotations
 
 import os
+
 import jax
 import numpy as np
-from flax import serialization
 
 from gcnbmp_tpu.train.loop import TrainState
 
-try:
-    import orbax.checkpoint as ocp
-
-    HAVE_ORBAX = True
-except Exception:  # pragma: no cover
-    ocp = None
-    HAVE_ORBAX = False
+SUFFIX = ".npz"
 
 
 def _state_to_tree(state: TrainState) -> dict:
@@ -38,7 +33,7 @@ def _state_to_tree(state: TrainState) -> dict:
     }
 
 
-def _tree_to_state(tree: dict, template: TrainState) -> TrainState:
+def _tree_to_state(tree: dict) -> TrainState:
     meta = tree["meta"]
     return TrainState(
         params=tree["params"],
@@ -50,38 +45,40 @@ def _tree_to_state(tree: dict, template: TrainState) -> TrainState:
     )
 
 
+def save_tree(path: str, tree) -> None:
+    """Write a pytree's leaves to ``path`` (an ``.npz``), in flattening
+    order."""
+    leaves = jax.tree_util.tree_leaves(jax.device_get(tree))
+    os.makedirs(os.path.dirname(os.path.abspath(path)) or ".", exist_ok=True)
+    np.savez(path, *[np.asarray(x) for x in leaves])
+
+
+def load_tree(path: str, template):
+    """Read a :func:`save_tree` file into ``template``'s structure,
+    checking leaf count, shapes and dtypes."""
+    leaves, treedef = jax.tree_util.tree_flatten(jax.device_get(template))
+    with np.load(path, allow_pickle=False) as data:
+        stored = [data[f"arr_{i}"] for i in range(len(data.files))]
+    if len(stored) != len(leaves):
+        raise ValueError(
+            f"{path}: {len(stored)} arrays, but the model needs {len(leaves)}")
+    for i, (s, t) in enumerate(zip(stored, leaves)):
+        t = np.asarray(t)
+        if s.shape != t.shape or s.dtype != t.dtype:
+            raise ValueError(
+                f"{path}: leaf {i} is {s.dtype}{list(s.shape)}, the model "
+                f"expects {t.dtype}{list(t.shape)}")
+    return jax.tree_util.tree_unflatten(treedef, stored)
+
+
 def save_checkpoint(path: str, state: TrainState) -> None:
-    path = os.path.abspath(path)
-    tree = jax.device_get(_state_to_tree(state))
-    if HAVE_ORBAX:
-        ckptr = ocp.PyTreeCheckpointer()
-        ckptr.save(path, tree, force=True)
-    else:  # pragma: no cover
-        os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
-        with open(path + ".msgpack", "wb") as f:
-            f.write(serialization.to_bytes(tree))
+    save_tree(os.path.abspath(path) + SUFFIX, _state_to_tree(state))
 
 
 def restore_checkpoint(path: str, template: TrainState) -> TrainState:
     path = os.path.abspath(path)
-    if HAVE_ORBAX and os.path.isdir(path):
-        ckptr = ocp.PyTreeCheckpointer()
-        tree = ckptr.restore(path, item=jax.device_get(_state_to_tree(template)))
-    else:  # pragma: no cover
-        # msgpack restore against the template's structure — no arbitrary
-        # code execution on load (unlike the reference's Classifier pickle,
-        # eval_coattention.py:430-431).
-        if (not os.path.exists(path + ".msgpack")
-                and os.path.exists(path + ".pkl")):
-            raise RuntimeError(
-                f"{path}.pkl is a legacy pickle-fallback checkpoint; the "
-                "fallback format is now flax msgpack (no code execution "
-                "on restore). Re-save the checkpoint from the run that "
-                "produced it, or load it manually with pickle at your "
-                "own risk."
-            )
-        with open(path + ".msgpack", "rb") as f:
-            tree = serialization.from_bytes(
-                jax.device_get(_state_to_tree(template)), f.read()
-            )
-    return _tree_to_state(tree, template)
+    if not os.path.exists(path + SUFFIX):
+        raise FileNotFoundError(
+            f"no checkpoint {path}{SUFFIX} (checkpoints written in an older "
+            "format must be re-saved by the run that produced them)")
+    return _tree_to_state(load_tree(path + SUFFIX, _state_to_tree(template)))

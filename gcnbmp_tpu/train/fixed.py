@@ -134,12 +134,11 @@ def save_fixed_run(out_dir: str, result: Dict, *, sim_method: str,
     """Write a self-contained fixed-embedding run directory.
 
     Layout: ``config.json`` (method="fixed" + head config — the marker
-    predict.py routes on), ``params.msgpack`` (flax serialization, no
-    code execution on load — unlike the reference's pickled model,
+    predict.py routes on), ``params.npz`` (train/checkpoints.save_tree,
+    no code execution on load — unlike the reference's pickled model,
     mol2vec_predict.py), ``embeddings.npz`` (ids + vectors, so scoring
     needs no external artifact), ``metrics.json``."""
-    import jax
-    from flax import serialization
+    from gcnbmp_tpu.train.checkpoints import save_tree
 
     os.makedirs(out_dir, exist_ok=True)
     ids = sorted(table)
@@ -153,8 +152,7 @@ def save_fixed_run(out_dir: str, result: Dict, *, sim_method: str,
     }
     with open(os.path.join(out_dir, "config.json"), "w") as f:
         json.dump(cfg, f, indent=1)
-    with open(os.path.join(out_dir, "params.msgpack"), "wb") as f:
-        f.write(serialization.to_bytes(jax.device_get(result["params"])))
+    save_tree(os.path.join(out_dir, "params.npz"), result["params"])
     np.savez(os.path.join(out_dir, "embeddings.npz"),
              ids=np.asarray(ids), vecs=vecs)
     metrics = {k: result[k] for k in ("train_metrics", "val_metrics", "losses")
@@ -178,7 +176,8 @@ def is_fixed_run(run_dir: str) -> bool:
 def load_fixed_run(run_dir: str):
     """Load (predictor, params, id->vector table) from save_fixed_run."""
     import jax
-    from flax import serialization
+
+    from gcnbmp_tpu.train.checkpoints import load_tree
 
     with open(os.path.join(run_dir, "config.json")) as f:
         cfg = json.load(f)
@@ -186,8 +185,7 @@ def load_fixed_run(run_dir: str):
         cfg["sim_method"], cfg["class_num"], tuple(cfg["net_hidden_dims"]))
     dummy = jnp.zeros((2, cfg["emb_dim"]), jnp.float32)
     template = predictor.init(jax.random.PRNGKey(0), dummy, dummy)["params"]
-    with open(os.path.join(run_dir, "params.msgpack"), "rb") as f:
-        params = serialization.from_bytes(jax.device_get(template), f.read())
+    params = load_tree(os.path.join(run_dir, "params.npz"), template)
     data = np.load(os.path.join(run_dir, "embeddings.npz"), allow_pickle=False)
     table = {str(i): v for i, v in zip(data["ids"], data["vecs"])}
     return predictor, params, table

@@ -7,7 +7,7 @@
 // path: ~1 MB host->device instead of ~120 MB dense) or the dense
 // (P, 4, T, T) adjacency.  The reference has no counterpart (its only
 // batching is chainer_chemistry concat_mols pad-to-max, SURVEY §2.8);
-// this is the TPU-first input pipeline of SURVEY §7.1.
+// this is the input pipeline of SURVEY §7.1.
 //
 // The per-batch Python implementation costs ~200 ms for a 2048-pair
 // batch — far above the ~7 ms device step — so the hot path lives here.

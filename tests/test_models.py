@@ -127,10 +127,10 @@ def test_circular_correlation_matches_reference_fft():
     # numpy definition: ifft(conj(fft(a)) * fft(b)).real
     ref2 = np.real(np.fft.ifft(np.conj(np.fft.fft(a, axis=-1)) * np.fft.fft(b, axis=-1), axis=-1))
     np.testing.assert_allclose(got, ref2, rtol=1e-4, atol=1e-5)
-    # MXU (time-domain) form
+    # time-domain (circulant matmul) form
     got_mm = np.asarray(circular_correlation_matmul(jnp.asarray(a), jnp.asarray(b)))
     np.testing.assert_allclose(got_mm, ref2, rtol=1e-4, atol=1e-5)
-    # auto dispatch (measured v5e crossover): matmul form at D<=16,
+    # auto dispatch: matmul form at D<=MATMUL_MAX_D,
     # rfft above — both already proven equal to the reference math
     from gcnbmp_tpu.ops.circular import MATMUL_MAX_D, circular_correlation_auto
 

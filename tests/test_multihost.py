@@ -6,7 +6,7 @@ reassociation.
 
 The reference's distribution ceiling is a single-process 2-GPU
 ParallelUpdater (train_ddi_modify_eval2.py:583-586); this covers the
-SURVEY §2.9/§5.8 multi-host design the TPU build adds."""
+SURVEY §2.9/§5.8 multi-host design this package adds."""
 
 import os
 import re

@@ -344,7 +344,7 @@ def test_trainer_debug_checks_smoke(tmp_path):
 
 def test_packed_bf16_compute_close_to_f32():
     """compute_dtype=bf16 (matmul operands bf16, f32 accumulation) stays
-    numerically close to the f32 path — the +21-40% v5e fast mode."""
+    numerically close to the f32 path."""
     import jax.numpy as jnp
 
     ds = _dataset()

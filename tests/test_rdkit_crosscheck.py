@@ -5,7 +5,7 @@ The reference's featurization sits on RDKit sanitization
 (/root/reference/my_utils/preprocessors/ggnn_preprocessor.py:10-11);
 this repo ships its own parser + Hückel aromaticity perception
 (chem/smiles.py) so the framework has no hard RDKit dependency.  When
-RDKit IS installed (pip install 'gcnbmp-tpu[chem]'), these tests assert
+RDKit IS installed (pip install 'gcnbmp[chem]'), these tests assert
 the two backends agree — atoms, aromaticity, bond orders, and the
 GGNN featurizer outputs — over the shipped 546-drug corpus and the
 hand-curated edge-case list.  Skipped cleanly when RDKit is absent.
